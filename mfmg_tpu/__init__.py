@@ -1,12 +1,13 @@
-"""mfmg_tpu — a TPU-native matrix-free spectral-AMGe multigrid framework.
+"""mfmg_tpu — a matrix-free spectral-AMGe multigrid framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of ORNL-CEES/mfmg
-(reference: /root/reference): element-agglomeration AMGe with local spectral
-coarse spaces, partition-of-unity weighted restriction, Galerkin coarse
-operators, Jacobi/Chebyshev smoothers, V-cycle preconditioned CG — built for
-TPU hardware (batched dense eigensolves instead of threaded per-agglomerate
-ARPACK loops, ELL SpMV + fused stencil applies instead of cuSPARSE, and
-`jax.sharding` + `shard_map` halo exchange instead of MPI).
+A from-scratch JAX/XLA re-design of the capabilities of ORNL-CEES/mfmg:
+element-agglomeration AMGe with local spectral coarse spaces,
+partition-of-unity weighted restriction, Galerkin coarse operators,
+Jacobi/Chebyshev smoothers, V-cycle preconditioned CG — built as batched
+array programs for an accelerator (batched dense eigensolves instead of
+threaded per-agglomerate ARPACK loops, gather-free stencil applies instead of
+cuSPARSE, and `jax.sharding` + `shard_map` halo exchange instead of MPI).
+It runs on an NVIDIA GPU, and on the CPU for the tests.
 
 Public API mirrors mfmg's Hierarchy (reference include/mfmg/common/hierarchy.hpp):
 

@@ -9,8 +9,8 @@ Analog of AMGe::build_agglomerates (reference common/amge.templates.hpp:51-85):
     nothing downstream (restriction rows are permutation-invariant).
   * "metis"/"zoltan": graph partitioning of the cell-connectivity graph into
     n_agglomerates parts (amge.templates.hpp:501-594).  Implemented with a
-    recursive coordinate-bisection partitioner (no external graph library on
-    TPU hosts); produces balanced connected parts like Zoltan's RCB.
+    recursive coordinate-bisection partitioner (no external graph library
+    needed); produces balanced connected parts like Zoltan's RCB.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Multilevel graph partitioner (METIS-style) for unstructured agglomeration.
 
-TPU-native analog of the reference's METIS/Zoltan partitioner option
+Analog of the reference's METIS/Zoltan partitioner option
 (reference common/amge.templates.hpp:501-594, which hands the cell
-connectivity graph to deal.II's SparsityTools::partition).  No external graph
-library exists on TPU hosts, so this implements the standard multilevel
+connectivity graph to deal.II's SparsityTools::partition).  The package
+depends on no external graph library, so this implements the standard multilevel
 scheme those libraries use:
 
   1. coarsen by heavy-edge matching until the graph is small,

@@ -3,8 +3,8 @@
 The reference builds a sub-triangulation + sparse matrix per agglomerate and
 eigensolves them one at a time under WorkStream threading
 (dealii/amge_host.templates.hpp:586-615) or sequentially on GPU
-(cuda/amge_device.templates.cuh:208-432, with a TODO to batch).  The
-TPU-native design *is* that TODO: all agglomerate operators are materialized
+(cuda/amge_device.templates.cuh:208-432, with a TODO to batch).  This
+design *is* that TODO: all agglomerate operators are materialized
 as a single (n_agg, m_max, m_max) padded dense batch so the eigensolve runs as
 one batched `eigh`/Lanczos — ragged sizes handled by masking, threads replaced
 by the batch dimension.

@@ -20,7 +20,7 @@ class EigensolverConfig:
     Mirrors the ``eigensolver`` subtree (reference
     dealii/amge_host.templates.hpp:164-207 for how each key is consumed).
 
-    type: "lapack" (batched dense eigh — the TPU-native default, analog of the
+    type: "lapack" (batched dense eigh — the default, analog of the
       reference's LAPACK/cuSOLVER paths), "lanczos" (batched Lanczos with
       Cullum-Willoughby filtering), "anasazi" (batched LOBPCG,
       eigen/lobpcg.py, with use_initial_guess warm-start support), or
@@ -40,9 +40,8 @@ class EigensolverConfig:
     # reproduces the reference CUDA path (fragile, see eigen/batched_eigh.py).
     constrained_mode: str = "auto"
     # Where to run the batched dense eigensolve: "host" (LAPACK, float64),
-    # "device" (jnp.linalg.eigh on the accelerator — much faster for large
-    # batches, float32 on TPU), or "auto" (device when the batch is large and
-    # the hierarchy dtype is not float64).
+    # "device" (on the accelerator), or "auto" (the level-0 structured batch
+    # runs eigen/device_eig.py on a GPU, everything else runs on the host).
     backend: str = "auto"
     n_eigenvectors: int = 2            # "number of eigenvectors"
     tolerance: float = 1e-14
@@ -67,14 +66,14 @@ class SmootherConfig:
     type: "jacobi" (the reference's device smoother,
       source/cuda/cuda_smoother.cu:39-60), "chebyshev" (the reference's
       matrix-free smoother), or "symmetric gauss-seidel"/"gauss-seidel"
-      (implemented TPU-natively as multicolor sweeps).
+      (implemented as data-parallel multicolor sweeps).
     n_smoothing_steps: pre- and post-smoothing step count per level.
     degree / smoothing_range / max_eigenvalue: Chebyshev parameters matching
       deal.II's PreconditionChebyshev::AdditionalData semantics.
     """
 
     type: str = "jacobi"
-    # Gauss-Seidel ordering: "multicolor" (TPU-native parallel sweeps, the
+    # Gauss-Seidel ordering: "multicolor" (data-parallel sweeps, the
     # production choice) or "lexicographic" (the reference's sequential
     # Trilinos SOR/SSOR semantics, dealii_smoother.cc:38-52, realized as
     # dense triangular solves — the golden-rate parity oracle, O(n^2) memory,

@@ -1,6 +1,6 @@
 """Batched dense symmetric eigensolver for agglomerate coarse spaces.
 
-TPU-native analog of the reference "lapack" eigensolver path
+Batched analog of the reference "lapack" eigensolver path
 (dealii/amge_host.templates.hpp:446-467) and the cuSOLVER sygvd path
 (cuda/amge_device.templates.cuh:86-172): instead of one dense eigensolve per
 agglomerate in a thread/stream loop, the whole padded batch is solved at once.

@@ -8,9 +8,9 @@ Re-implementation of the reference's Lanczos stack
     tridiagonal eigensolve per check, Cullum-Willoughby spurious-eigenvalue
     filter with tol 5e-12 (lanczos.templates.hpp:336-419), Ritz vectors from
     stored Lanczos vectors, optional multi-cycle deflated mode,
-  * a TPU-batched variant for the AMGe setup: a fixed-iteration
+  * a batched device variant for the AMGe setup: a fixed-iteration
     `lax.scan` Lanczos over the whole padded agglomerate batch (matvec =
-    one batched matmul on the MXU), with the tridiagonal solves + CW
+    one batched matmul), with the tridiagonal solves + CW
     filtering replayed on host over the stored coefficients, reproducing the
     reference's stopping behaviour exactly while keeping the device loop
     branch-free.
@@ -217,13 +217,13 @@ def _solve_single(matvec, initial, num_requested, tol, maxit, percent_overshoot)
 
 
 # --------------------------------------------------------------------------
-# TPU-batched variant for the AMGe setup
+# Batched device variant for the AMGe setup
 # --------------------------------------------------------------------------
 def batched_lanczos_smallest(batch, eig_cfg, constrained_mode: str = "pin"):
     """Smallest eigenpairs of every agglomerate via one batched device Lanczos.
 
     Device part: fixed-count lax.scan whose body is a single
-    (n_agg, m, m) x (n_agg, m) batched matvec — the TPU replacement for the
+    (n_agg, m, m) x (n_agg, m) batched matvec — the batched replacement for the
     reference's per-agglomerate threaded Lanczos loops.  Host part: replay of
     the reference's convergence schedule + CW filter over the stored
     tridiagonal coefficients (tiny).

@@ -1,4 +1,4 @@
-"""Batched LOBPCG — the TPU-native form of the reference's Anasazi adapter.
+"""Batched LOBPCG — the batched form of the reference's Anasazi adapter.
 
 The reference runs Trilinos Anasazi's LOBPCG per agglomerate under WorkStream
 threads (dealii/anasazi.templates.hpp:36-105, "SM" smallest-magnitude,
@@ -9,7 +9,7 @@ optional warm start reusing previous eigenvectors
 Here all agglomerates iterate TOGETHER: one `lax.while_loop` whose carried
 state is the batched block (n_agg, m, 3*nev) and whose body is batched dense
 algebra — the per-iteration Rayleigh-Ritz is a batched eigh of (3*nev x 3*nev)
-blocks on the MXU.  Termination mirrors Anasazi's:
+blocks.  Termination mirrors Anasazi's:
 
   * per-agglomerate convergence test: block g converges when every requested
     Ritz pair satisfies ||A x - theta x||_2 <= tol (the adapter's NON-relative

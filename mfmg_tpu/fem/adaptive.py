@@ -4,7 +4,7 @@ The reference inherits hanging-node handling from deal.II: locally refined
 Triangulations produce AffineConstraints that tie each hanging dof to the
 dofs of the coarse neighbor face, and assembly condenses them into the global
 system (reference tests/laplace.hpp:126-141,197-199).  This module is the
-minimal TPU-native analog for Q1 elements:
+minimal analog for Q1 elements:
 
   * ``refine_adaptive(verts, cells, marks)`` splits the marked hex/quad cells
     into 2^dim children (flat transfinite vertex placement, matching

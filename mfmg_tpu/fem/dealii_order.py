@@ -9,7 +9,7 @@ The reference inherits deal.II's orderings everywhere an ordering matters:
     and the sequential Gauss-Seidel goldens (test_hierarchy.cc:343-356)
     measure rates in it.
 
-Our meshes use x-fastest *lexicographic* numbering (the TPU-friendly layout
+Our meshes use x-fastest *lexicographic* numbering (the accelerator-friendly layout
 for stencils and slab sharding).  These helpers provide the exact deal.II
 permutations on top, so ordering-sensitive reference goldens (Gauss-Seidel
 rates, literal agglomerate-id vectors, test_agglomerate.cc:79-288) can be

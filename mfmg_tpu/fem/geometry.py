@@ -3,7 +3,7 @@
 Computes what deal.II's FEValues/MatrixFree mapping data provides (Jacobians,
 JxW, physical quadrature points; reference tests/laplace.hpp:160-195 and
 laplace_matrix_free.hpp:129-156 consume exactly these), batched over all cells
-as dense arrays — the TPU-native replacement for per-cell FEValues::reinit.
+as dense arrays — the batched replacement for per-cell FEValues::reinit.
 
 All computation is numpy float64 at setup time; the results feed both host CSR
 assembly and the device matrix-free apply.

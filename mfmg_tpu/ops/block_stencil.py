@@ -30,10 +30,9 @@ class BlockStencilOperator:
 
     K is the same data in patches layout, (n_comp, n_comp*(2k+1)^dim, n_sites):
     the apply extracts all windows in ONE `conv_general_dilated_patches` op
-    (im2col as a single MXU-friendly convolution) and contracts with K in one
-    batched einsum — two large ops instead of n_offsets tiny slice-einsums,
-    which dominate multilevel V-cycle time on TPU (measured: the slice-einsum
-    coarse level doubled the 3-level cycle to 3.34 ms at 274k dofs).
+    (im2col as a single convolution) and contracts with K in one batched
+    einsum — two large ops instead of n_offsets tiny slice-einsums, whose
+    per-op overhead would dominate the coarse levels of the V-cycle.
     """
 
     coeffs: jax.Array
@@ -118,10 +117,7 @@ def block_stencil_from_csr(A: sp.spmatrix, agg_shape: tuple, n_comp: int,
     nonzero = [i for i in range(len(offsets)) if np.any(coeffs[i])]
     coeffs = coeffs[nonzero]
     offsets_nz = tuple(offsets[i] for i in nonzero)
-    coeffs_d = jnp.asarray(coeffs, dtype=dtype)
-    from mfmg_tpu.ops.fused_cycle import note_host
-    note_host(coeffs_d, coeffs)          # spare the fused builder a d2h
-    return BlockStencilOperator(coeffs=coeffs_d,
+    return BlockStencilOperator(coeffs=jnp.asarray(coeffs, dtype=dtype),
                                 K=jnp.asarray(K, dtype=dtype),
                                 offsets=offsets_nz, agg_shape=agg_shape,
                                 n_comp=n_comp, radius=max_radius)

@@ -1,10 +1,10 @@
 """Matrix-free operator apply: gather -> batched element matmul -> scatter-add.
 
-TPU-native replacement for deal.II MatrixFree::cell_loop + FEEvaluation
+Batched replacement for deal.II MatrixFree::cell_loop + FEEvaluation
 (reference tests/laplace_matrix_free.hpp:129-156) and for
 DealIIMatrixFreeOperator::vmult / CudaMatrixFreeOperator::vmult.  Instead of a
 threaded loop over SIMD cell batches, ALL cells are processed as one batched
-contraction on the MXU; ghost/constraint handling is a masked elementwise
+contraction; ghost/constraint handling is a masked elementwise
 pass.
 
 Two compute modes:

@@ -1,12 +1,11 @@
-"""Sparse linear algebra for TPU.
+"""Sparse linear algebra on the device.
 
 The reference's sparse stack is Epetra CSR on host and cuSPARSE CSR on device
 (reference cuda/sparse_matrix_device.cuh, csrmv at
-sparse_matrix_device.templates.cuh:34-70).  On TPU the efficient SpMV layout
-is ELL (padded rows): FE matrices on quasi-uniform meshes have near-constant
-row length, so padding waste is small and the kernel becomes a dense gather +
-multiply + row-sum — fully vectorizable on the VPU with a single gather from
-HBM, no data-dependent control flow.
+sparse_matrix_device.templates.cuh:34-70).  Here the SpMV layout is ELL
+(padded rows): FE matrices on quasi-uniform meshes have near-constant row
+length, so padding waste is small and the kernel becomes a dense gather +
+multiply + row-sum with a fixed shape and no data-dependent control flow.
 
 Setup-time sparse-sparse products (Galerkin triple product R·A·Rᵀ, SpGEMM)
 run on host via scipy — mirroring the reference, whose parallel device path

@@ -41,11 +41,6 @@ class StructuredTransfer:
     window_shape: tuple = dataclasses.field(metadata=dict(static=True))
     agg_shape: tuple = dataclasses.field(metadata=dict(static=True))
     grid_shape: tuple = dataclasses.field(metadata=dict(static=True))
-    # z-tiled Pallas kernel operands (ops/pallas_transfer.py), baked by the
-    # hierarchy's TPU finalization for grids beyond VMEM residency — the XLA
-    # selection-matmul chain measures 1.32 ms at 129^3 against ~0.1 ms of
-    # compulsory traffic (grid-sized HBM intermediates + relayouts)
-    tiled: object = None
 
     @property
     def n_ev(self):
@@ -56,15 +51,9 @@ class StructuredTransfer:
         return (self.n_ev * int(np.prod(self.agg_shape)), int(np.prod(self.grid_shape)))
 
     def restrict(self, x):
-        if self.tiled is not None:
-            from mfmg_tpu.ops.pallas_transfer import tiled_restrict
-            return tiled_restrict(self.tiled, x)
         return structured_restrict(self, x)
 
     def prolong(self, xc):
-        if self.tiled is not None:
-            from mfmg_tpu.ops.pallas_transfer import tiled_prolong
-            return tiled_prolong(self.tiled, xc)
         return structured_prolong(self, xc)
 
 
@@ -84,15 +73,13 @@ def _sel_mats(tr: StructuredTransfer, dtype):
             for d in range(len(tr.agg_shape))]
 
 
-# Selection matmuls on the TPU default to bf16 passes; HIGHEST forces exact
-# f32 at ~6x the MXU passes.  The transfers live inside the PRECONDITIONER
-# (the outer Krylov residual uses the exact operator), so DEFAULT costs no
-# PCG iterations (measured 13 -> 13 at 2.1M, 9 -> 9 at 274k) while the
-# 129^3 transfer pair drops 2.29 -> ~0.9 ms.  MFMG_TRANSFER_HI=1 restores
-# exact transfers (CPU golden tests are unaffected either way: precision
-# flags are no-ops off-TPU).  Note bf16 passes make restrict/prolong no
-# longer exact adjoints inside the CG preconditioner (mildly nonsymmetric
-# preconditioner); iteration counts verified unchanged at 274k and 2.1M.
+# The selection matmuls run at Precision.DEFAULT: on a GPU a float32 product
+# then runs in TF32 (about three decimal digits), and on the CPU it is exact
+# float32.  The transfers live inside the PRECONDITIONER (the outer Krylov
+# residual uses the exact operator), so the reduced precision perturbs only
+# the preconditioner; TF32 also makes restrict/prolong no longer exact
+# adjoints (a mildly nonsymmetric preconditioner).  MFMG_TRANSFER_HI=1 forces
+# exact float32 (Precision.HIGHEST).
 #
 # The env var is read at TRACE time (each call below), not import time, so
 # setting it programmatically before building/applying a hierarchy in the
@@ -110,11 +97,9 @@ def _prec():
 def structured_restrict(tr: StructuredTransfer, x: jax.Array) -> jax.Array:
     """Windowed contraction as a chain of per-axis SELECTION MATMULS:
     the overlapped 5^3-stride-4 windows are materialized by multiplying each
-    grid axis with a ((a,t) x grid) 0/1 operator — three MXU matmuls — then
-    one fused mul-reduce against the per-agglomerate weights.  Measured at
-    65^3/4^3 blocks on v5e: 75 us vs 185 us for the round-2 corner-subset
-    einsum decomposition (whose 2^dim blocked-reshape concats are relayout-
-    bound) and 3.3 ms for conv_general_dilated_patches."""
+    grid axis with a ((a,t) x grid) 0/1 operator — three matmuls — then one
+    fused mul-reduce against the per-agglomerate weights.  No gathers and no
+    blocked-reshape concatenations."""
     _HI = _prec()
     dim = len(tr.agg_shape)
     na, win = tr.agg_shape, tr.window_shape
@@ -158,14 +143,9 @@ def structured_prolong(tr: StructuredTransfer, xc: jax.Array) -> jax.Array:
     return t.reshape(-1)
 
 
-# Dense-transfer size cap: below this many entries the coarse-level transfer
-# is stored as a dense matrix and applied as one MXU matvec (measured 0.009 ms
-# vs 1.18 ms for the strided conv at 8192x128 on v5e); above it the windowed
-# conv path keeps memory O(window * out_grid).  The cap is 16M elems (64 MB
-# f32) since round 5: the windowed PROLONG (jax.linear_transpose of the
-# patches conv) measured 4.55 s/call on XLA:CPU at a 16384x512 transfer —
-# the transposed conv is pathological there — while the dense matvec is ms;
-# the FUSED-tail kernel applies its own tighter VMEM cap (ops/fused_cycle).
+# Dense-transfer size cap: below this many entries (64 MB f32) the
+# coarse-level transfer is stored as a dense matrix and applied as one
+# matvec; above it the windowed form keeps memory O(window * out_grid).
 DENSE_TRANSFER_MAX_ELEMS = 16_000_000
 
 
@@ -177,11 +157,12 @@ class GeneralWindowTransfer:
     Used for AMGe levels >= 1, where restriction rows couple a super-block to
     the member + ring blocks of the previous level: window offsets t in
     [t0, t0+w) per axis with stride s (w > s+1 allowed, unlike the fine-level
-    StructuredTransfer).  Restriction is one strided im2col
-    (conv_general_dilated_patches) plus a batched contraction; prolongation
-    is derived mechanically as the linear transpose.  When the operator is
-    small (DENSE_TRANSFER_MAX_ELEMS) a dense copy Rd is stored instead and
-    both directions are single MXU matvecs.
+    StructuredTransfer).  Restriction is the fine level's design: per-axis
+    window-selection matmuls, then one contraction with the weights;
+    prolongation is derived mechanically as its linear transpose (matmuls
+    with the transposed selections).  When the operator is small
+    (DENSE_TRANSFER_MAX_ELEMS) a dense copy Rd is stored instead and both
+    directions are single matvecs.
 
     W : (n_out,) + window_shape + (n_in,) + out_grid   weights
     """
@@ -223,31 +204,45 @@ def _dense_prolong(Rd, xc):
     return xc @ Rd
 
 
+def _gwt_sel_mats(tr: GeneralWindowTransfer, dtype):
+    """Per-axis ((S, t) -> input position) 0/1 operators:
+    Sel_d[S*w + t, S*stride + t0 + t] = 1 where that position is inside the
+    input grid (positions outside it read zero)."""
+    mats = []
+    for d in range(len(tr.in_grid)):
+        w, o, g = tr.window_shape[d], tr.out_grid[d], tr.in_grid[d]
+        S = np.repeat(np.arange(o), w)
+        t = np.tile(np.arange(w), o)
+        pos = S * tr.stride[d] + tr.t0[d] + t
+        ok = (pos >= 0) & (pos < g)
+        M = np.zeros((o * w, g))
+        M[(S * w + t)[ok], pos[ok]] = 1.0
+        mats.append(jnp.asarray(M, dtype=dtype))
+    return mats
+
+
 @jax.jit
 def _gwt_restrict(tr: GeneralWindowTransfer, x: jax.Array) -> jax.Array:
-    """All windows in ONE conv_general_dilated_patches (strided im2col), then
-    one batched contraction — instead of prod(window_shape) strided-slice
-    einsums (216 for a 4-stride halo-1 3D window), whose per-op overhead
-    dominates multilevel cycles on TPU."""
+    """Windows by per-axis selection matmuls, then one contraction with W.
+    (A strided-patches convolution did the same in one op, but its linear
+    transpose — the prolongation — measured 6.2 ms per call on an H100 at
+    the 2.1M-dof hierarchy's L1->L2 transfer, and seconds on XLA:CPU.)"""
+    prec = _prec()
     dim = len(tr.in_grid)
-    xg = jnp.moveaxis(x.reshape(tr.in_grid + (tr.n_in,)), -1, 0)[None]
-    # padding (exact, possibly negative on the high side) so output spatial
-    # dims equal out_grid: window t in [t0, t0+w) at block positions S*s
-    pad = []
+    t = x.reshape(tr.in_grid + (tr.n_in,))
+    for d, S in enumerate(_gwt_sel_mats(tr, x.dtype)):
+        t = jnp.moveaxis(jnp.tensordot(S, t, axes=((1,), (d,)),
+                                       precision=prec), 0, d)
+    shape = []
     for d in range(dim):
-        lo = -tr.t0[d]
-        hi = (tr.t0[d] + tr.window_shape[d] - 1
-              + tr.stride[d] * (tr.out_grid[d] - 1) - (tr.in_grid[d] - 1))
-        pad.append((lo, hi))
-    pat = jax.lax.conv_general_dilated_patches(
-        xg, filter_shape=tr.window_shape, window_strides=tr.stride,
-        padding=pad)                      # (1, n_in*nt, *out_grid), (f,t)-major
-    nt = int(np.prod(tr.window_shape))
-    pat = pat.reshape(tr.n_in * nt, -1)                  # (f*nt, n_S)
-    # W: (n_out, *win, n_in, *out_grid) -> (n_out, n_in*nt, n_S)
-    Wk = jnp.moveaxis(tr.W.reshape((tr.n_out, nt, tr.n_in, -1)), 2, 1)
-    Wk = Wk.reshape(tr.n_out, tr.n_in * nt, -1)
-    out = jnp.einsum("eks,ks->se", Wk, pat)              # (n_S, n_out)
+        shape += [tr.out_grid[d], tr.window_shape[d]]
+    xw = t.reshape(tuple(shape) + (tr.n_in,))     # (u, i, v, j, [w, k], f)
+    lt = ["i", "j", "k"][:dim]
+    lb = ["u", "v", "w"][:dim]
+    spec = ("e" + "".join(lt) + "f" + "".join(lb) + ","
+            + "".join(lb[d] + lt[d] for d in range(dim)) + "f"
+            + "->" + "".join(lb) + "e")
+    out = jnp.einsum(spec, tr.W, xw, precision=prec)
     return out.reshape(-1)
 
 
@@ -295,16 +290,11 @@ def general_window_transfer_from_csr(R_l, in_grid, n_in, out_grid, n_out,
     tidx = tuple(t_rev[:, d] for d in range(dim))
     np.add.at(W, (e_out,) + tidx + (e_in, out_flat), A.data)
     W = W.reshape((n_out,) + window_shape + (n_in,) + out_grid)
-    from mfmg_tpu.ops.fused_cycle import note_host
     Rd = None
     if R_l.shape[0] * R_l.shape[1] <= DENSE_TRANSFER_MAX_ELEMS:
-        Rd_h = np.asarray(sp.csr_matrix(R_l).todense())
-        Rd = jnp.asarray(Rd_h, dtype=dtype)
-        note_host(Rd, Rd_h)
-    W_d = jnp.asarray(W, dtype=dtype)
-    note_host(W_d, W)
+        Rd = jnp.asarray(np.asarray(sp.csr_matrix(R_l).todense()), dtype=dtype)
     return GeneralWindowTransfer(
-        W=W_d, window_shape=window_shape,
+        W=jnp.asarray(W, dtype=dtype), window_shape=window_shape,
         t0=tuple(reversed(t0_xyz)), stride=tuple(reversed(stride_xyz)),
         in_grid=in_grid, out_grid=out_grid, n_in=n_in, n_out=n_out, Rd=Rd)
 
@@ -352,10 +342,7 @@ def structured_transfer_from_batch(mesh, batch, evecs, global_diag,
     # current axes: (az, ay, ax, tz, ty, tx, e) -> (e, tz, ty, tx, az, ay, ax)
     Wfull = np.moveaxis(Wfull, -1, 0)
     Wfull = np.moveaxis(Wfull, list(range(1 + dim, 1 + 2 * dim)), list(range(1, 1 + dim)))
-    W_d = jnp.asarray(Wfull, dtype=dtype)
-    from mfmg_tpu.ops.fused_cycle import note_host
-    note_host(W_d, Wfull)
-    return StructuredTransfer(W=W_d,
+    return StructuredTransfer(W=jnp.asarray(Wfull, dtype=dtype),
                               window_shape=tuple(int(v) for v in wdims[::-1]),
                               agg_shape=tuple(int(v) for v in na[::-1]),
                               grid_shape=tuple(int(v) for v in n1[::-1]))

@@ -1,6 +1,6 @@
 """Sum-factorized Q_k matrix-free operator apply.
 
-High-order TPU path for the reference's matrix-free operator
+High-order path for the reference's matrix-free operator
 (tests/laplace_matrix_free.hpp:129-156; hierarchy_driver.cc template-dispatches
 fe_degree 1..10).  The quadrature-mode apply in ops/local_apply.py contracts
 through a per-cell table G[c,q,d,i] of size n_q*dim*n_loc = O((k+1)^{2dim});
@@ -13,8 +13,8 @@ this module factors the tensor-product structure of Q_k instead:
 Per-cell data shrinks from O((k+1)^{2dim}) to the (n_q, dim, dim) metric K
 (deal.II MappingInfo compression, see fem/geometry.py compute_metric), and
 FLOPs from O((k+1)^{2dim}) to O(dim^2 (k+1)^{dim+1}).  Every contraction is a
-large batched matmul over all cells — exactly the shape XLA tiles onto the
-MXU; the VPU-era loop structure of FEEvaluation becomes 3 einsum chains.
+large batched matmul over all cells, the shape XLA hands to its matmul
+kernels; the loop structure of FEEvaluation becomes 3 einsum chains.
 
 Local dof and quadrature orderings are the reference element's x-fastest
 lexicographic flatten (fem/reference.py), so index i reshapes to tensor axes

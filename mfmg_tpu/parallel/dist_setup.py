@@ -6,7 +6,7 @@ allgathering the per-rank row counts and rows
 (/root/reference/include/mfmg/common/amge.templates.hpp:596-643) — at every
 level of the hierarchy.
 
-TPU-native analog over ``jax.distributed`` processes:
+Analog over ``jax.distributed`` processes:
 
   * SUPER-agglomerates (the level-1 groups) are split into contiguous
     slabs, and each process's level-0 slab is its supers' member

@@ -1,6 +1,6 @@
 """Multi-chip distribution of the hierarchy via jax.sharding.
 
-TPU-native replacement for the reference's MPI domain decomposition
+Replacement for the reference's MPI domain decomposition
 (reference §2.4: Epetra row maps + ghosted vectors; the CUDA path all-gathers
 the whole source vector per SpMV, sparse_matrix_device.templates.cuh:104-138).
 
@@ -9,10 +9,10 @@ fine-level object — ELL rows, matrix-free cell batches, and vectors — while
 the small coarse-level objects are replicated.  Row dimensions are padded to a
 multiple of the mesh size (padded ELL rows are all-zero, padded matrix-free
 cells scatter zeros into dof 0), so every shard is identical in shape — the
-TPU analog of Epetra's balanced row maps.  The V-cycle is the SAME jitted
+analog of Epetra's balanced row maps.  The V-cycle is the SAME jitted
 function as single-chip; GSPMD partitions it and inserts the collectives
 (all-gathers for off-shard column reads, psums for scatter-adds), reproducing
-the reference CUDA backend's gather-SpMV pattern on ICI.  The optimized
+the reference CUDA backend's gather-SpMV pattern.  The optimized
 structured path (ppermute halo exchange overlapped with interior compute,
 modeled on the reference's AMGX one-ring maps) lives in parallel/stencil.py.
 """
@@ -47,7 +47,7 @@ def _pad_rows(arr, n_pad: int, fill=0):
 def shard_vector(mesh: Mesh, v, n_pad: int | None = None):
     """Pad a fine-level vector to the sharded size and place it row-sharded
     (over ALL mesh axes — a (host, device) 2-axis mesh shards rows over the
-    flattened device grid, the DCN x ICI layout)."""
+    flattened device grid)."""
     v = jnp.asarray(v)
     n_pad = n_pad or padded_size(v.shape[0], mesh)
     return jax.device_put(_pad_rows(v, n_pad),

@@ -1,6 +1,6 @@
 """SPMD stencil V-cycle: slab/pencil decomposition + ppermute halo exchange.
 
-The TPU-native analog of the reference's MPI domain decomposition with ghost
+The analog of the reference's MPI domain decomposition with ghost
 exchange (reference §2.4).  Where the reference CUDA path all-gathers the
 whole source vector per SpMV (sparse_matrix_device.templates.cuh:104-138) and
 its AMGX path builds one-ring halo maps (cuda_solver.cu:264-443), here the
@@ -9,8 +9,8 @@ mesh — z-slabs, or (z,y) pencils past the slab surface-to-volume wall at
 high device counts — and each stencil apply exchanges exactly the k boundary
 planes with its neighbors via `lax.ppermute`, per sharded axis in sequence
 (the second exchange carries the first axis's halo along, which covers the
-corner/edge exchanges).  The one-ring pattern, on ICI, overlappable with
-interior compute by XLA.
+corner/edge exchanges).  The one-ring pattern, which XLA can overlap with
+interior compute.
 
 Layout: every sharded axis is padded to P_d * ceil(.) agglomerate windows of
 s_d planes each (padded planes carry zero stencil coefficients and zero
@@ -87,10 +87,7 @@ def build_spmd_vcycle(hier, n_devices: int | None = None, devices=None,
     n_shard = len(mesh_shape)
     op: StencilOperator = lvl0.op
     tr: StructuredTransfer = lvl0.transfer
-    # the TPU finalization may have swapped in the fused single-kernel
-    # smoother; the sharded cycle spells out the polynomial itself, so use
-    # the plain form the hierarchy stashed
-    sm = getattr(hier, "_unfused_smoother0", None) or lvl0.smoother
+    sm = lvl0.smoother
     dim = len(op.grid_shape)
     if dim not in (2, 3):
         raise ValueError("SPMD V-cycle supports 2D and 3D grids")
@@ -107,7 +104,7 @@ def build_spmd_vcycle(hier, n_devices: int | None = None, devices=None,
     # fine grid: one agglomerate-grid dof per s^dim fine nodes); only the
     # 2-level case reduces to the bare inverse matvec.
     levels_rest = tuple(hier.levels[1:])
-    dtype = op.coeffs.dtype
+    dtype = tr.W.dtype                 # vector dtype (the planes may be bf16)
 
     rest_grid = op.grid_shape[n_shard:]
     rest_agg = tr.agg_shape[n_shard:]

@@ -1,7 +1,7 @@
 // Native host kernels for mfmg_tpu setup hot paths.
 //
 // The reference's runtime is C++ end-to-end (deal.II assembly loops,
-// Trilinos CSR plumbing, cuda/utils.cu converters).  In the TPU build the
+// Trilinos CSR plumbing, cuda/utils.cu converters).  In this build the
 // device compute path is XLA, but the host setup pipeline keeps native
 // kernels for the operations where numpy's generic dispatch is the
 // bottleneck: batched agglomerate dense assembly (the np.add.at scatter),
@@ -19,7 +19,7 @@
 namespace {
 
 // Agglomerates are independent (disjoint output blocks), so the batch splits
-// across host threads with no synchronization — the TPU-native analog of the
+// across host threads with no synchronization — the analog of the
 // reference's WorkStream threading over agglomerates
 // (dealii/amge_host.templates.hpp:508-519).
 template <typename F>

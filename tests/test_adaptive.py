@@ -2,7 +2,7 @@
 
 The reference inherits hanging-node handling from deal.II AffineConstraints
 (tests/laplace.hpp:126-141: make_hanging_node_constraints + condense +
-distribute).  These tests cover the minimal TPU-native analog in
+distribute).  These tests cover the minimal analog in
 fem/adaptive.py: constraint construction, condensation correctness on a
 manufactured solution, and the full AMGe hierarchy on a 1-irregular mesh.
 """

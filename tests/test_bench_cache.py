@@ -1,6 +1,6 @@
-"""Large-bench hierarchy-cache invalidation key (round-4 verdict item #5):
-the key must change on any source or config change, and be stable otherwise,
-so the driver-captured BENCH can never run on a stale hierarchy."""
+"""Large-bench hierarchy-cache invalidation key: the key must change on any
+source or config change, and be stable otherwise, so the bench can never run
+on a stale hierarchy."""
 
 import sys
 import os

@@ -1,13 +1,15 @@
 """End-to-end driver tests with the reference's own config file
 (analog of running hierarchy_driver in the reference's ctest registry)."""
 
+import os
+
 import numpy as np
 import pytest
 
 from mfmg_tpu.driver import main
 
 
-REF_INFO = "/root/reference/tests/data/hierarchy_input.info"
+REF_INFO = os.path.join(os.path.dirname(__file__), "data", "hierarchy_input.info")
 
 
 def test_driver_rate_mode_reference_config(capsys):

@@ -7,7 +7,7 @@ V-cycles on a random initial error with zero RHS; rate = res[20]/res[19].
 Reference golden values reproduced here (config: 3D hyper_cube, n_ref=2,
 2x2x2 block agglomerates, 2 eigenvectors/agglomerate):
   * matrix-free path, Chebyshev smoother, lanczos eigensolver:
-    0.0880045475  (test_hierarchy.cc:353) — matched by the TPU build at ~1e-4
+    0.0880045475  (test_hierarchy.cc:353) — matched here at ~1e-4
     because the restriction row-span is invariant to the eigensolver basis and
     the Chebyshev interval converges to the exact extreme eigenvalues.
 The matrix-path goldens (0.0235...) use the reference's sequential
@@ -486,9 +486,8 @@ def test_reordering_golden_sweep_king():
 
 
 def test_midsize_window_transfer_takes_dense_path():
-    """Round-5 regression: transfers up to 16M entries must take the dense
-    matvec (the windowed prolong — linear_transpose of a strided patches
-    conv — measured 4.55 s/call on XLA:CPU at a 16384x512 transfer)."""
+    """Transfers up to 16M entries take the dense matvec (one op instead of
+    the windowed matmul chain)."""
     from mfmg_tpu.ops.structured_transfer import (DENSE_TRANSFER_MAX_ELEMS,
                                                   GeneralWindowTransfer)
 
@@ -503,3 +502,32 @@ def test_midsize_window_transfer_takes_dense_path():
     tr = h.levels[1].transfer
     assert isinstance(tr, GeneralWindowTransfer)
     assert tr.Rd is not None          # in the dense band at this size
+
+
+@pytest.mark.parametrize("direction", ["restrict", "prolong"])
+def test_windowed_transfer_matches_dense(direction):
+    """The windowed L1<->L2 transfer (per-axis selection matmuls; its
+    prolongation is their linear transpose) equals the dense restriction
+    matrix it was built from, in both directions."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    prob = LaplaceProblem.hyper_cube(3, 5, material_property="linear")
+    cfg = _cfg_3d(operator="stencil", dtype="float32", max_levels=3,
+                  eigensolver=EigensolverConfig(n_eigenvectors=2,
+                                                n_eigenvectors_deep=4),
+                  smoother=SmootherConfig(type="chebyshev", degree=2),
+                  agglomeration=AgglomerationConfig(nx=4, ny=4, nz=4))
+    tr = Hierarchy(prob, cfg).levels[1].transfer
+    Rd = np.asarray(tr.Rd, dtype=np.float64)
+    windowed = dataclasses.replace(tr, Rd=None)
+    rng = np.random.default_rng(0)
+    if direction == "restrict":
+        v = rng.standard_normal(Rd.shape[1])
+        got, ref = windowed.restrict(jnp.asarray(v, jnp.float32)), Rd @ v
+    else:
+        v = rng.standard_normal(Rd.shape[0])
+        got, ref = windowed.prolong(jnp.asarray(v, jnp.float32)), Rd.T @ v
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float64), ref,
+                               atol=1e-5 * np.abs(ref).max())
